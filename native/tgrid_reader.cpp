@@ -1,13 +1,13 @@
 // Native TGRID (.msh) parser.
 //
-// Host-side counterpart of orc_tpu/mesh/tgrid.py for large meshes: the
+// Host-side counterpart of orc_cfd/mesh/tgrid.py for large meshes: the
 // pure-Python section parser is fine at 10^4 faces but becomes the
 // preprocessing bottleneck at 10^7. Same grammar coverage (see the
 // Python module's docstring; reference reader: io.rs:32-284): nodes,
 // cell zones, face sections with hexadecimal indices, zone-name
 // comments and (39/45) name sections, mixed/polygonal face types.
 //
-// C ABI consumed by orc_tpu/mesh/native.py via ctypes. Build:
+// C ABI consumed by orc_cfd/mesh/native.py via ctypes. Build:
 //   g++ -O2 -shared -fPIC -o libtgrid.so tgrid_reader.cpp
 
 #include <cctype>

@@ -1,0 +1,235 @@
+"""Planar channel (Couette/Poiseuille) validation case.
+
+The framework's canonical physics validation, mirroring the reference
+harness (tests.rs:11-152): steady flow between parallel plates driven by
+a moving top wall and/or a streamwise pressure gradient has the
+closed-form profile
+
+    u(y) = U y/h + (1/(2 mu)) (dp/dx) (y^2 - h y)
+
+and the solver's u_mean/u_min/u_max are checked against the analytical
+values within a relative tolerance.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.simple import FlowState, initial_state, solve_steady
+from orc_cfd.utils.settings import NumericalSettings
+
+CHANNEL_HEIGHT = 0.001  # m   (tests.rs:53)
+CHANNEL_LENGTH = 0.002  # m   (tests.rs:54, DX)
+CHANNEL_DEPTH = 0.0001  # m   (couette fixture z extent)
+
+
+@dataclasses.dataclass
+class ChannelFlowParameters:
+    """tests.rs:11-16."""
+
+    top_wall_velocity: float = 0.0
+    dp_dx: float = 0.0
+    mu: float = 0.001
+    rho: float = 1000.0
+
+
+def analytical_profile(params: ChannelFlowParameters, h=CHANNEL_HEIGHT, n=128):
+    """(y, u(y)) samples of the analytical solution (tests.rs:26-31)."""
+    y = np.arange(n) / n * h
+    u = params.top_wall_velocity * y / h + (
+        1.0 / (2.0 * params.mu) * params.dp_dx * (y**2 - h * y)
+    )
+    return y, u
+
+
+def analytical_stats(
+    params: ChannelFlowParameters, h=CHANNEL_HEIGHT
+) -> Tuple[float, float, float]:
+    """(u_avg, u_min, u_max) closed forms (tests.rs:33-41), with the
+    dp/dx = 0 division guarded (pure Couette: extremes at the walls)."""
+    U, mu, dpdx = params.top_wall_velocity, params.mu, params.dp_dx
+    if dpdx != 0.0:
+        u_ext = -((2.0 * mu * U - h**2 * dpdx) ** 2) / (8.0 * h**2 * dpdx * mu)
+        # Only count the parabola's extremum if it sits inside the channel.
+        y_ext = h / 2.0 - mu * U / (h * dpdx)
+        if not (0.0 < y_ext < h):
+            u_ext = 0.0
+    else:
+        u_ext = 0.0
+    u_avg = U / 2.0 - h**2 / (12.0 * mu) * dpdx
+    u_max = max(U, 0.0, u_ext)
+    u_min = min(U, 0.0, u_ext)
+    return u_avg, u_min, u_max
+
+
+def couette_case(
+    nx: int = 8,
+    ny: int = 8,
+    nz: int = 1,
+    params: Optional[ChannelFlowParameters] = None,
+    velocity_inlet: Optional[float] = None,
+    mesh_path: Optional[str] = None,
+    dtype=None,
+):
+    """Build the channel-flow mesh + BCs.
+
+    With `velocity_inlet` set, the inlet becomes a velocity inlet
+    (tests.rs:154-188); otherwise pressure inlet/outlet BCs encode dp/dx
+    over the channel length (tests.rs:60-76).
+    """
+    import jax.numpy as jnp
+
+    params = params or ChannelFlowParameters()
+    kw = {} if dtype is None else dict(dtype=dtype)
+    if mesh_path is not None:
+        from orc_cfd.mesh import read_mesh
+
+        mesh, table = read_mesh(mesh_path)
+    else:
+        mesh, table = structured_box_mesh(
+            nx,
+            ny,
+            nz,
+            lengths=(CHANNEL_LENGTH, CHANNEL_HEIGHT, CHANNEL_DEPTH),
+            **kw,
+        )
+    wall_names = [fz.name for fz in table.zones.values() if "WALL" in fz.name]
+    if "TOP_WALL" in wall_names:
+        table.set(
+            "TOP_WALL",
+            FaceCondition.WALL,
+            vector_value=(params.top_wall_velocity, 0.0, 0.0),
+        )
+        table.set("BOTTOM_WALL", FaceCondition.WALL)
+    else:  # 8x8 reference fixture merges both walls into "WALL"
+        table.set("WALL", FaceCondition.WALL)
+    if velocity_inlet is not None:
+        table.set(
+            "INLET",
+            FaceCondition.VELOCITY_INLET,
+            vector_value=(velocity_inlet, 0.0, 0.0),
+        )
+    else:
+        table.set(
+            "INLET",
+            FaceCondition.PRESSURE_INLET,
+            scalar_value=-params.dp_dx * CHANNEL_LENGTH,
+        )
+    table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.0)
+    table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+    table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+    return mesh, table
+
+
+def solve_channel_flow(
+    params: ChannelFlowParameters,
+    settings: Optional[NumericalSettings] = None,
+    nx: int = 8,
+    ny: int = 8,
+    iterations: int = 100,
+    reporting_interval: int = 10,
+    validation_threshold: float = 0.1,
+    state: Optional[FlowState] = None,
+    mesh_path: Optional[str] = None,
+    verbose: bool = True,
+):
+    """Run the channel-flow case and validate against the analytical
+    profile (reference harness: tests.rs:44-152). Returns a result dict
+    with fields, stats and pass/fail flags."""
+    settings = settings or NumericalSettings()
+    mesh, table = couette_case(nx=nx, ny=ny, params=params, mesh_path=mesh_path)
+    if state is None:
+        from orc_cfd.solver.init_fields import initialize_flow
+
+        state = initialize_flow(mesh, table, params.mu, params.rho)
+    state, history = solve_steady(
+        mesh,
+        table,
+        settings,
+        params.rho,
+        params.mu,
+        state=state,
+        iterations=iterations,
+        reporting_interval=reporting_interval,
+        verbose=verbose,
+    )
+    u = np.asarray(state.vel[:, 0])
+    u_mean, u_min, u_max = float(u.mean()), float(u.min()), float(u.max())
+    # Evaluate the analytical profile at the cell-centroid heights so the
+    # min/max comparison is between like quantities (a cell-centered
+    # solution can never reach the wall value; the reference compares
+    # cell stats against continuum stats and its broken comparator hides
+    # the mismatch, tests.rs:111-124).
+    y_c = np.asarray(mesh.cell_centroid[:, 1])
+    h = CHANNEL_HEIGHT
+    u_ana = params.top_wall_velocity * y_c / h + (
+        1.0 / (2.0 * params.mu) * params.dp_dx * (y_c**2 - h * y_c)
+    )
+    a_mean, a_min, a_max = (
+        float(u_ana.mean()),
+        float(u_ana.min()),
+        float(u_ana.max()),
+    )
+
+    u_scale = max(abs(a_mean), abs(a_min), abs(a_max))
+
+    def close(a, b):
+        # Symmetric relative error; zero analytical values are compared
+        # against the overall velocity scale. (The reference's
+        # max/min - 1 comparison silently passes any pair of negative
+        # values, tests.rs:118-120 — fixed here.)
+        # Tiny absolute floor so a quiescent case (both analytical and
+        # solved fields identically zero) validates instead of 0/0.
+        denom = max(abs(a), abs(b), 0.05 * u_scale, 1e-30)
+        return abs(a - b) / denom < validation_threshold
+
+    # Core-region stats: exclude the inlet/outlet quarter-lengths, where
+    # Rhie-Chow's known pressure-boundary artifacts live (the reference
+    # documents them at lib.rs:141-143; its validation can't see them
+    # because its comparator is broken for negative values).
+    x_c = np.asarray(mesh.cell_centroid[:, 0])
+    lo, hi = np.quantile(x_c, [0.25, 0.75])
+    core = (x_c >= lo) & (x_c <= hi)
+    core_u = u[core]
+    core_ana = u_ana[core]
+
+    result = dict(
+        mesh=mesh,
+        table=table,
+        state=state,
+        history=history,
+        core_u_mean=float(core_u.mean()),
+        core_u_min=float(core_u.min()),
+        core_u_max=float(core_u.max()),
+        core_u_mean_analytical=float(core_ana.mean()),
+        core_u_min_analytical=float(core_ana.min()),
+        core_u_max_analytical=float(core_ana.max()),
+        u_mean=u_mean,
+        u_min=u_min,
+        u_max=u_max,
+        u_mean_analytical=a_mean,
+        u_min_analytical=a_min,
+        u_max_analytical=a_max,
+        mean_ok=close(u_mean, a_mean),
+        min_ok=close(u_min, a_min),
+        max_ok=close(u_max, a_max),
+    )
+    result["passed"] = result["mean_ok"] and result["min_ok"] and result["max_ok"]
+    if verbose:
+        for name, cfd, ana in (
+            ("U_mean", u_mean, a_mean),
+            ("U_min", u_min, a_min),
+            ("U_max", u_max, a_max),
+        ):
+            err = (cfd / ana - 1.0) * 100.0 if ana != 0 else float("nan")
+            print(
+                f" {name}:\tCFD = {cfd:>9.2e}; Analytical = {ana:>9.2e}; "
+                f"Error = {err:>6.1f}%"
+            )
+        print("validation passed" if result["passed"] else "**FAIL**")
+    return result

@@ -14,7 +14,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 GHIA_Y = [0.0547, 0.1016, 0.2813, 0.4531, 0.5, 0.6172, 0.7344, 0.9531]
 GHIA_U = [-0.1812, -0.2973, -0.2781, -0.1065, -0.0608, 0.0570, 0.1872, 0.4660]
@@ -49,11 +49,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/orc_tpu_jax_cache")
+    from orc_cfd.backend import setup_compile_cache
 
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import FlowState, initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    setup_compile_cache()
+
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import FlowState, initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,

@@ -13,7 +13,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 # Ghia, Ghia & Shin (1982), Re = 1000, Table I/II landmarks.
@@ -28,11 +28,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/orc_tpu_jax_cache")
+    from orc_cfd.backend import setup_compile_cache
 
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import FlowState, initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    setup_compile_cache()
+
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import FlowState, initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -51,7 +53,7 @@ def main():
     # Re=1000 UD's cross-stream numerical viscosity ~u h/2 rivals the
     # physical one and weakens the core vortex).
     second_order = os.environ.get("SCHEME", "ud") == "tvd"
-    from orc_tpu.utils.settings import tvd_umist
+    from orc_cfd.utils.settings import tvd_umist
 
     solver = MatrixSolverSettings(
         solver_type=SolutionMethod.BICGSTAB,

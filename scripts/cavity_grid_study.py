@@ -13,7 +13,7 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cavity_convergence_probe import GHIA_U, GHIA_V, GHIA_X, GHIA_Y, landmark_err
 
@@ -23,11 +23,13 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/orc_tpu_jax_cache")
+    from orc_cfd.backend import setup_compile_cache
 
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    setup_compile_cache()
+
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,

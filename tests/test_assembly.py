@@ -5,16 +5,16 @@ recommends adding it)."""
 import numpy as np
 import jax.numpy as jnp
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.ops.assembly import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.ops.assembly import (
     diffusion_system,
     momentum_system,
     pressure_correction_system,
 )
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.interpolation import face_flux, face_pressure
-from orc_tpu.utils.settings import (
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.interpolation import face_flux, face_pressure
+from orc_cfd.utils.settings import (
     MomentumScheme,
     NumericalSettings,
     PressureInterpolation,
@@ -163,8 +163,8 @@ def test_tvd_reduces_to_cd_for_linear_field():
     vel = jnp.asarray(np.stack([0.3 * cc[:, 0], 0 * cc[:, 1], 0 * cc[:, 2]], 1))
     p = jnp.zeros(C)
     diff = diffusion_system(mesh, fbc, MU)
-    from orc_tpu.ops.gradients import velocity_gradient
-    from orc_tpu.utils.settings import tvd_lud
+    from orc_cfd.ops.gradients import velocity_gradient
+    from orc_cfd.utils.settings import tvd_lud
 
     flux = face_flux(mesh, fbc, vel, VelocityInterpolation.LINEAR)
     p_f = face_pressure(mesh, fbc, p, PressureInterpolation.LINEAR)
@@ -198,11 +198,11 @@ def test_parity_stub_enums_raise():
     import jax.numpy as jnp
     import pytest
 
-    from orc_tpu.mesh.generate import structured_box_mesh
-    from orc_tpu.ops.fields import device_bc, face_bc
-    from orc_tpu.ops.gradients import pressure_gradient
-    from orc_tpu.ops.interpolation import face_flux, face_pressure
-    from orc_tpu.utils.settings import (
+    from orc_cfd.mesh.generate import structured_box_mesh
+    from orc_cfd.ops.fields import device_bc, face_bc
+    from orc_cfd.ops.gradients import pressure_gradient
+    from orc_cfd.ops.interpolation import face_flux, face_pressure
+    from orc_cfd.utils.settings import (
         GradientReconstruction,
         PressureInterpolation,
         VelocityInterpolation,

@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from orc_tpu.io.debug import ell_to_string, linear_system_to_string
-from orc_tpu.ops.spmv import EllMatrix
+from orc_cfd.io.debug import ell_to_string, linear_system_to_string
+from orc_cfd.ops.spmv import EllMatrix
 
 
 def small_matrix(n=4):
@@ -34,13 +34,13 @@ def test_debug_printers():
 
 
 def test_determinism_same_inputs_bitwise():
-    """Same inputs -> bit-identical results across runs (the TPU
+    """Same inputs -> bit-identical results across runs (the
     stand-in for the reference's absent race detection, SURVEY.md 5)."""
-    from orc_tpu.models.channel_flow import (
+    from orc_cfd.models.channel_flow import (
         ChannelFlowParameters,
         solve_channel_flow,
     )
-    from orc_tpu.utils.settings import (
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -71,9 +71,9 @@ def test_determinism_same_inputs_bitwise():
 
 
 def test_recovery_backs_off_and_completes():
-    from orc_tpu.models.channel_flow import couette_case, ChannelFlowParameters
-    from orc_tpu.solver.recovery import solve_steady_with_recovery
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.channel_flow import couette_case, ChannelFlowParameters
+    from orc_cfd.solver.recovery import solve_steady_with_recovery
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -121,9 +121,9 @@ def test_recovery_backs_off_and_completes():
 def test_momentum_source_hook():
     """A uniform body force in x on a closed cavity must accelerate the
     fluid in x."""
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -157,7 +157,7 @@ def test_momentum_source_hook():
 
 
 def test_measure_helpers():
-    from orc_tpu.utils.profiling import Timer, measure
+    from orc_cfd.utils.profiling import Timer, measure
 
     import jax
 
@@ -176,7 +176,7 @@ def test_momentum_source_dispatch():
     (centroids, volumes) sources receive the volume array."""
     import jax.numpy as jnp
 
-    from orc_tpu.ops.fields import momentum_source_term
+    from orc_cfd.ops.fields import momentum_source_term
 
     cc = jnp.ones((5, 3))
     vol = jnp.full((5,), 2.0)
@@ -198,16 +198,16 @@ def test_momentum_source_dispatch():
 
 
 def test_sharded_rans_multigrid_rejected():
-    from orc_tpu.mesh import structured_box_mesh
-    from orc_tpu.solver.turbulence import solve_steady_turbulent_sharded
-    from orc_tpu.utils.settings import (
+    from orc_cfd.mesh import structured_box_mesh
+    from orc_cfd.solver.turbulence import solve_steady_turbulent_sharded
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         NumericalSettings,
         SolutionMethod,
     )
 
     mesh, table = structured_box_mesh(4, 4, 1)
-    from orc_tpu.mesh.zones import FaceCondition
+    from orc_cfd.mesh.zones import FaceCondition
 
     table.set("INLET", FaceCondition.VELOCITY_INLET, vector_value=(1, 0, 0))
     table.set("OUTLET", FaceCondition.PRESSURE_OUTLET)

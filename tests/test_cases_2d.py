@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import read_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.init_fields import initialize_flow
-from orc_tpu.solver.simple import solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.mesh import read_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.init_fields import initialize_flow
+from orc_cfd.solver.simple import solve_steady
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,

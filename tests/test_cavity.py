@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from orc_tpu.models.cavity import solve_cavity
+from orc_cfd.models.cavity import solve_cavity
 
 
 def test_cavity_re100_ghia_landmarks():
@@ -49,9 +49,9 @@ def test_cavity_3d_stability():
     the working configuration at 20^3."""
     import jax.numpy as jnp
 
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -94,12 +94,12 @@ def test_cavity_3d_stability():
 
 
 @pytest.mark.skipif(
-    "os.environ.get('ORC_TPU_SLOW', '0') != '1'",
-    reason="heavy flagship validation: set ORC_TPU_SLOW=1 (minutes on "
-    "TPU, much longer on CPU)",
+    "os.environ.get('ORC_SLOW', '0') != '1'",
+    reason="heavy flagship validation: set ORC_SLOW=1 (minutes on "
+    "a GPU, much longer on CPU)",
 )
 def test_cavity_re1000_ghia_flagship():
-    """Flagship high-Re validation (VERDICT r2 item 1): mesh-sequenced
+    """Flagship high-Re validation: mesh-sequenced
     256^2 Re=1000 cavity with the conservative second-order scheme
     (TVD_DC + Rhie-Chow) matches Ghia et al. (1982) Table I/II u- and
     v-midlines to <= 0.05 max abs error.
@@ -124,9 +124,9 @@ def test_cavity_re1000_ghia_flagship():
 
     import jax.numpy as jnp
 
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.sequencing import solve_steady_sequenced
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.sequencing import solve_steady_sequenced
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -190,9 +190,9 @@ def test_correction_forms_agree():
     trajectory, not the fixed point (at convergence p' -> 0 and the
     momentum/continuity equations alone set the answer). Run with
     Rhie-Chow (FACE_VALUE's stable pairing; see the enum docstring)."""
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,

@@ -5,11 +5,11 @@ README.md:59-63), asserted rather than printed."""
 import numpy as np
 import pytest
 
-from orc_tpu.models.channel_flow import (
+from orc_cfd.models.channel_flow import (
     ChannelFlowParameters,
     solve_channel_flow,
 )
-from orc_tpu.utils.settings import (
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -115,7 +115,7 @@ def test_cd2_scheme():
 def test_tvd_umist_scheme():
     """TVD with the UMIST limiter (one of the reference's named
     limiters, lib.rs:111-118) on the Poiseuille case."""
-    from orc_tpu.utils.settings import tvd_umist
+    from orc_cfd.utils.settings import tvd_umist
 
     settings = ROBUST.replace(
         momentum=MomentumScheme.TVD, tvd_psi=tvd_umist
@@ -129,7 +129,7 @@ def test_tvd_umist_scheme():
 
 def test_least_squares_gradients():
     """Least-squares gradient reconstruction end-to-end."""
-    from orc_tpu.utils.settings import GradientReconstruction
+    from orc_cfd.utils.settings import GradientReconstruction
 
     settings = NumericalSettings(
         momentum=MomentumScheme.CD1,
@@ -160,9 +160,9 @@ def test_potential_flow_init_plug_profile():
     velocity in a straight channel — including on one-cell-thick 3D
     meshes where the least-squares system is z-degenerate (the ridge
     regularization case)."""
-    from orc_tpu.mesh import structured_box_mesh
-    from orc_tpu.mesh.zones import FaceCondition
-    from orc_tpu.solver.init_fields import initialize_velocity_field
+    from orc_cfd.mesh import structured_box_mesh
+    from orc_cfd.mesh.zones import FaceCondition
+    from orc_cfd.solver.init_fields import initialize_velocity_field
 
     mesh, table = structured_box_mesh(8, 4, 1, lengths=(2e-3, 1e-3, 1e-4))
     table.set("TOP_WALL", FaceCondition.WALL)
@@ -184,9 +184,9 @@ def test_potential_flow_init_plug_profile():
 def test_velocity_inlet_mass_conservation():
     """Velocity-inlet variant (tests.rs:154-235): bulk velocity must
     match the inlet velocity by mass conservation."""
-    from orc_tpu.models.channel_flow import couette_case
-    from orc_tpu.solver.init_fields import initialize_flow
-    from orc_tpu.solver.simple import solve_steady
+    from orc_cfd.models.channel_flow import couette_case
+    from orc_cfd.solver.init_fields import initialize_flow
+    from orc_cfd.solver.simple import solve_steady
 
     params = ChannelFlowParameters(mu=0.001, rho=1000.0)
     mesh, table = couette_case(nx=8, ny=8, params=params, velocity_inlet=1e-3)

@@ -6,18 +6,18 @@ import pytest
 
 import jax.numpy as jnp
 
-from orc_tpu.mesh import read_mesh, structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.ops.assembly import diffusion_system
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.ck_ops import build_ck_geometry, ck_bc, ck_diffusion
-from orc_tpu.solver.simple import (
+from orc_cfd.mesh import read_mesh, structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.ops.assembly import diffusion_system
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.ck_ops import build_ck_geometry, ck_bc, ck_diffusion
+from orc_cfd.solver.simple import (
     ck_simple_step,
     initial_state,
     simple_step,
     solve_steady,
 )
-from orc_tpu.utils.settings import (
+from orc_cfd.utils.settings import (
     GradientReconstruction,
     MatrixSolverSettings,
     MomentumScheme,
@@ -221,7 +221,7 @@ def test_uniform_ck_geometry_matches_expanded(dims, per):
     expanded [C,K] geometry exactly on uniform boxes."""
     import dataclasses
 
-    from orc_tpu.ops.ck_ops import UniformCKGeometry
+    from orc_cfd.ops.ck_ops import UniformCKGeometry
 
     mesh, table = structured_box_mesh(*dims, periodic=per)
     assert mesh.ck_constants is not None

@@ -8,16 +8,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.parallel.partition import partition_mesh, rcb_partition
-from orc_tpu.parallel.sharded import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.parallel.partition import partition_mesh, rcb_partition
+from orc_cfd.parallel.sharded import (
     gather_state,
     scatter_state,
     solve_steady_sharded,
 )
-from orc_tpu.solver.simple import initial_state, solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.solver.simple import initial_state, solve_steady
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -71,7 +71,7 @@ def test_halo_refresh_correctness():
     from jax.sharding import Mesh
     from jax import shard_map
     from jax import lax
-    from orc_tpu.parallel.sharded import AXIS, ShardedComm
+    from orc_cfd.parallel.sharded import AXIS, ShardedComm
 
     mesh, table = case(8, 4, 1)
     n = 4
@@ -225,9 +225,10 @@ def test_rhie_chow_sharded_matches():
 
 
 def test_graft_entry():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -237,12 +238,13 @@ def test_graft_entry():
 
 
 def test_graft_entry_dryrun_subprocess():
-    """The driver calls dryrun_multichip from a process bound to ONE real
-    TPU chip; the subprocess fallback (scrubbed env + virtual CPU mesh)
-    is what makes it pass there. Exercise that path explicitly."""
+    """dryrun_multichip called from a process that sees fewer devices
+    than requested falls back to a subprocess (scrubbed env + virtual
+    CPU mesh). Exercise that path explicitly."""
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(__file__)))
     import __graft_entry__ as ge
 
     ge._dryrun_multichip_subprocess(8)
@@ -261,7 +263,7 @@ def test_slab_ghost_layers_refresh():
     holds the owning device's value (= global cell id here)."""
     from jax import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
-    from orc_tpu.parallel.sharded import AXIS, ShardedComm
+    from orc_cfd.parallel.sharded import AXIS, ShardedComm
 
     mesh, table = case(16, 4, 1)
     n = 4
@@ -360,11 +362,10 @@ def test_sharded_amg_matches_single_device_irregular():
 def test_sharded_3x3_cube_matches_single_device(reference_mesh_dir):
     """The reference's own mixed-cell TGRID mesh (3x3_cube.msh),
     RCB-partitioned and solved sharded, must match the single-device
-    run — the distributed tier on the reference's mesh class
-    (VERDICT r2 item 7)."""
+    run — the distributed tier on the reference's mesh class."""
     import os
 
-    from orc_tpu.mesh import read_mesh
+    from orc_cfd.mesh import read_mesh
 
     mesh, table = read_mesh(os.path.join(reference_mesh_dir, "3x3_cube.msh"))
     table.set("INLET", FaceCondition.PRESSURE_INLET, scalar_value=1.0)

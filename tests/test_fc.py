@@ -17,15 +17,15 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.models.cavity import cavity_case
-from orc_tpu.models.channel_flow import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.models.cavity import cavity_case
+from orc_cfd.models.channel_flow import (
     ChannelFlowParameters,
     solve_channel_flow,
 )
-from orc_tpu.solver.simple import initial_state, solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.solver.simple import initial_state, solve_steady
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -271,7 +271,7 @@ def test_fc_sharded_matches_single_device():
     """SIMPLE_FC under shard_map (both the face-major and ck-direct
     local steps): all reductions/refreshes ride the comm hooks, so the
     sharded trajectory must reproduce the single-device one."""
-    from orc_tpu.parallel.sharded import solve_steady_sharded
+    from orc_cfd.parallel.sharded import solve_steady_sharded
 
     mesh, table = structured_box_mesh(8, 8, 1, lengths=(0.002, 0.001, 0.0001))
     table.set("TOP_WALL", FaceCondition.WALL, vector_value=(5e-4, 0, 0))
@@ -308,7 +308,7 @@ def test_fc_transient_taylor_green():
     test (tests/test_transient.py)."""
     import dataclasses
 
-    from orc_tpu.solver.transient import solve_transient
+    from orc_cfd.solver.transient import solve_transient
 
     N = 32
     rho, mu = 1.0, 0.02
@@ -355,7 +355,7 @@ def test_fc_rans_channel_smoke():
     (tests/test_turbulence.py) runs under the FC coupling with finite,
     physical fields. Quantitative DNS bands stay pinned by the parity
     test; this pins that the RANS outer loop composes with FC."""
-    from orc_tpu.solver.turbulence import solve_steady_turbulent
+    from orc_cfd.solver.turbulence import solve_steady_turbulent
 
     H = 2.0
     rho, mu = 1.0, 1.0 / 10975.0
@@ -410,7 +410,7 @@ def test_fc_irregular_mesh_matches_structured():
 
     rng = np.random.default_rng(5)
     mesh_s, table = cavity_case(n=12, lid_velocity=1.0)
-    from orc_tpu.mesh.compile import compile_from_arrays
+    from orc_cfd.mesh.compile import compile_from_arrays
 
     C = mesh_s.n_cells
     perm = rng.permutation(C)
@@ -463,7 +463,7 @@ def test_fc_explicit_relaxation_envelope():
     The graded pressure-BC channel and alpha_p >= 0.1 cavities remain
     OUTSIDE the envelope (NOTES.md round-5 table); AUTO therefore
     still gates FC on implicit relaxation."""
-    from orc_tpu.models.channel_flow import (
+    from orc_cfd.models.channel_flow import (
         ChannelFlowParameters,
         couette_case,
     )

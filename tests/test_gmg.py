@@ -13,12 +13,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from orc_tpu.mesh.generate import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.ops.assembly import diffusion_system
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.spmv import EllMatrix
-from orc_tpu.solver.gmg import (
+from orc_cfd.mesh.generate import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.ops.assembly import diffusion_system
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.spmv import EllMatrix
+from orc_cfd.solver.gmg import (
     GmgLevel,
     build_gmg_hierarchy,
     build_mg_hierarchy,
@@ -28,7 +28,7 @@ from orc_tpu.solver.gmg import (
     prolong,
     restrict,
 )
-from orc_tpu.utils.settings import (
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MatrixSolverSettings as MSS,
     MomentumScheme,
@@ -155,10 +155,10 @@ def test_build_mg_hierarchy_dispatch():
 def test_simple_with_gmg_matches_bicgstab():
     """Full SIMPLE under MULTIGRID (geometric) converges to the same
     cavity fields as BiCGSTAB."""
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
 
-    from orc_tpu.utils.settings import RelaxationMode
+    from orc_cfd.utils.settings import RelaxationMode
 
     mesh, table = cavity_case(n=16, lid_velocity=1.0)
     # Enclosed flow: implicit (Patankar) relaxation is the stable
@@ -206,10 +206,9 @@ def test_simple_with_gmg_matches_bicgstab():
 @pytest.mark.parametrize("ck", [False, "auto"])
 def test_sharded_multigrid_matches_single_device(ck):
     """Distributed MULTIGRID (fine level distributed, coarse levels
-    replicated) reproduces the single-device trajectory — the test tier
-    VERDICT round 1 flagged as missing."""
-    from orc_tpu.parallel.sharded import solve_steady_sharded
-    from orc_tpu.solver.simple import initial_state, solve_steady
+    replicated) reproduces the single-device trajectory."""
+    from orc_cfd.parallel.sharded import solve_steady_sharded
+    from orc_cfd.solver.simple import initial_state, solve_steady
 
     mesh, table = structured_box_mesh(8, 8, 1, lengths=(0.002, 0.001, 0.0001))
     table.set("TOP_WALL", FaceCondition.WALL, vector_value=(5e-4, 0, 0))
@@ -252,7 +251,7 @@ def test_gmg_periodic_poiseuille():
     """MULTIGRID solves the periodic channel (wrap offsets at every
     level)."""
     from tests.test_periodic import body_force_settings, periodic_channel
-    from orc_tpu.solver.simple import initial_state, solve_steady
+    from orc_cfd.solver.simple import initial_state, solve_steady
 
     nx, ny, H = 8, 16, 1.0
     mesh, table = periodic_channel(nx=nx, ny=ny, H=H)

@@ -5,12 +5,12 @@ mesh/nodes.py)."""
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import read_mesh
-from orc_tpu.mesh.generate import write_tgrid
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.gradients import pressure_gradient, velocity_gradient
-from orc_tpu.utils.settings import GradientReconstruction
+from orc_cfd.mesh import read_mesh
+from orc_cfd.mesh.generate import write_tgrid
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.gradients import pressure_gradient, velocity_gradient
+from orc_cfd.utils.settings import GradientReconstruction
 
 GG_NODE = GradientReconstruction.GREEN_GAUSS_NODE
 
@@ -73,8 +73,8 @@ def test_node_gg_requires_vertex_tables(tmp_path):
 def test_node_gg_channel_flow_e2e(tmp_path):
     """Poiseuille with node-based gradients end-to-end (forces the
     face-major path: the ck-direct step only does GG-cell)."""
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -118,8 +118,8 @@ def test_node_gg_channel_flow_e2e(tmp_path):
 
 
 def test_use_ck_true_rejects_node_gradients(tmp_path):
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import NumericalSettings
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import NumericalSettings
 
     mesh, table = _load_box(tmp_path, 4, 4, 1, lengths=(1.0, 1.0, 0.1))
     settings = NumericalSettings(gradient_reconstruction=GG_NODE)

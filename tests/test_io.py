@@ -7,15 +7,15 @@ import re
 import numpy as np
 import pytest
 
-from orc_tpu.io.data import read_data, rust_sci, write_data, write_gradients
-from orc_tpu.io.checkpoint import (
+from orc_cfd.io.data import read_data, rust_sci, write_data, write_gradients
+from orc_cfd.io.checkpoint import (
     load_checkpoint,
     load_or_initialize,
     save_checkpoint,
 )
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.simple import initial_state
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.simple import initial_state
 
 
 def test_rust_sci_format():
@@ -117,9 +117,9 @@ def test_warm_start_semantics(tmp_path):
 def test_vtk_2d_polygon_areas(reference_mesh_dir, tmp_path):
     """2D mesh -> VTK_POLYGON cells whose shoelace areas reproduce the
     mesh cell volumes (loop ordering + connectivity are both right)."""
-    from orc_tpu.io.vtk import write_vtk
-    from orc_tpu.mesh import read_mesh
-    from orc_tpu.mesh.tgrid import parse_tgrid
+    from orc_cfd.io.vtk import write_vtk
+    from orc_cfd.mesh import read_mesh
+    from orc_cfd.mesh.tgrid import parse_tgrid
 
     msh = os.path.join(reference_mesh_dir, "2D_3x6.msh")
     mesh, _ = read_mesh(msh)
@@ -152,9 +152,9 @@ def test_vtk_2d_polygon_areas(reference_mesh_dir, tmp_path):
 
 def test_vtk_3d_polyhedron_roundtrip(tmp_path):
     """3D box -> VTK_POLYHEDRON face streams; cell data round-trips."""
-    from orc_tpu.io.vtk import read_vtk_cell_data, write_vtk
-    from orc_tpu.mesh.generate import write_tgrid
-    from orc_tpu.mesh.tgrid import parse_tgrid
+    from orc_cfd.io.vtk import read_vtk_cell_data, write_vtk
+    from orc_cfd.mesh.generate import write_tgrid
+    from orc_cfd.mesh.tgrid import parse_tgrid
 
     msh = tmp_path / "box.msh"
     write_tgrid(str(msh), 4, 3, 2, lengths=(4.0, 3.0, 2.0))
@@ -182,10 +182,10 @@ def test_vtk_3d_polyhedron_roundtrip(tmp_path):
 def test_vtk_solution_write(tmp_path):
     """write_solution_vtk packages a FlowState; field-size mismatch is
     rejected."""
-    from orc_tpu.io.vtk import read_vtk_cell_data, write_solution_vtk, write_vtk
-    from orc_tpu.mesh.generate import write_tgrid
-    from orc_tpu.solver.simple import initial_state
-    from orc_tpu.mesh import read_mesh
+    from orc_cfd.io.vtk import read_vtk_cell_data, write_solution_vtk, write_vtk
+    from orc_cfd.mesh.generate import write_tgrid
+    from orc_cfd.solver.simple import initial_state
+    from orc_cfd.mesh import read_mesh
 
     msh = tmp_path / "s.msh"
     write_tgrid(str(msh), 3, 3, 1)
@@ -205,11 +205,11 @@ def test_debug_dump_structured_no_neighbors():
     (the shift path's EllMatrices carry None since round 2)."""
     import jax.numpy as jnp
 
-    from orc_tpu.io.debug import ell_to_string, linear_system_to_string
-    from orc_tpu.mesh.generate import structured_box_mesh
-    from orc_tpu.ops.ck_ops import build_ck_geometry, ck_bc, ck_diffusion
-    from orc_tpu.ops.fields import device_bc
-    from orc_tpu.ops.spmv import EllMatrix
+    from orc_cfd.io.debug import ell_to_string, linear_system_to_string
+    from orc_cfd.mesh.generate import structured_box_mesh
+    from orc_cfd.ops.ck_ops import build_ck_geometry, ck_bc, ck_diffusion
+    from orc_cfd.ops.fields import device_bc
+    from orc_cfd.ops.spmv import EllMatrix
 
     mesh, table = structured_box_mesh(3, 3, 1)
     zc, zs, zv = device_bc(table, mesh.dtype)
@@ -230,10 +230,10 @@ def test_checkpoint_turbulence_roundtrip(tmp_path):
     checkpoints still load with with_turbulence=True (turb=None)."""
     import jax.numpy as jnp
 
-    from orc_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-    from orc_tpu.mesh.generate import structured_box_mesh
-    from orc_tpu.solver.simple import initial_state
-    from orc_tpu.solver.turbulence import initial_turbulence
+    from orc_cfd.io.checkpoint import load_checkpoint, save_checkpoint
+    from orc_cfd.mesh.generate import structured_box_mesh
+    from orc_cfd.solver.simple import initial_state
+    from orc_cfd.solver.turbulence import initial_turbulence
 
     mesh, _ = structured_box_mesh(4, 4, 1)
     state = initial_state(mesh)
@@ -286,10 +286,10 @@ def test_face_velocities_write_plot_cycle(tmp_path):
     plot_face_velocities renders a multi-file comparison figure."""
     import jax.numpy as jnp
 
-    from orc_tpu.io.data import write_face_velocities
-    from orc_tpu.ops.fields import device_bc, face_bc
-    from orc_tpu.ops.interpolation import face_velocity
-    from orc_tpu.plotting import _read_face_velocities, plot_face_velocities
+    from orc_cfd.io.data import write_face_velocities
+    from orc_cfd.ops.fields import device_bc, face_bc
+    from orc_cfd.ops.interpolation import face_velocity
+    from orc_cfd.plotting import _read_face_velocities, plot_face_velocities
 
     mesh, table = structured_box_mesh(6, 4, 1)
     table.set("TOP_WALL", FaceCondition.WALL, vector_value=(1.0, 0, 0))

@@ -11,13 +11,13 @@ import os
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import (
+from orc_cfd.mesh import (
     parse_tgrid,
     read_mesh,
     structured_box_mesh,
     write_tgrid,
 )
-from orc_tpu.mesh.zones import FaceCondition
+from orc_cfd.mesh.zones import FaceCondition
 
 
 def check_mesh_invariants(mesh):
@@ -214,12 +214,12 @@ def test_structured_fast_matches_generic():
     same offsets, and bit-equal dense diffusion systems."""
     import jax.numpy as jnp
 
-    from orc_tpu.mesh.generate import (
+    from orc_cfd.mesh.generate import (
         _structured_box_mesh_generic,
         structured_box_mesh,
     )
-    from orc_tpu.ops.assembly import diffusion_system
-    from orc_tpu.ops.fields import device_bc, face_bc
+    from orc_cfd.ops.assembly import diffusion_system
+    from orc_cfd.ops.fields import device_bc, face_bc
 
     cases = [
         dict(nx=5, ny=4, nz=1),

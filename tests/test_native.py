@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from orc_tpu.mesh.tgrid import parse_tgrid
-from orc_tpu.mesh import read_mesh, write_tgrid
+from orc_cfd.mesh.tgrid import parse_tgrid
+from orc_cfd.mesh import read_mesh, write_tgrid
 
-native = pytest.importorskip("orc_tpu.mesh.native")
+native = pytest.importorskip("orc_cfd.mesh.native")
 
 if not native.native_available():
     pytest.skip("g++ toolchain unavailable", allow_module_level=True)

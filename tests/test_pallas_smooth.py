@@ -1,10 +1,10 @@
-"""Fused multi-sweep Jacobi smoother (ops/pallas_smooth.py).
+"""Fixed-count damped Jacobi smoother (krylov.jacobi_smooth_solve).
 
-Equivalence pins: the interpret-mode kernel must reproduce the XLA
-sweep loop (krylov.jacobi_smooth_solve's body) on structured-offset
-systems — batched and unbatched, 2D and 3D offset patterns, sweep
-counts spanning the halo-depth range — and split_columns' zero-offset
-pruning must not change any SpMV result.
+Equivalence pins: the XLA sweep loop on structured-offset systems must
+reproduce a dense NumPy Jacobi iteration — batched and unbatched, 2D
+and 3D offset patterns, offsets wider than 128 cells, sweep
+counts 1-6 — and split_columns' zero-offset pruning must not change
+any SpMV result.
 """
 
 import numpy as np
@@ -12,13 +12,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from orc_tpu.ops.pallas_smooth import (
-    _fused_batched,
-    eligible,
-    fused_jacobi_sweeps,
-    sweeps_xla,
-)
-from orc_tpu.ops.spmv import EllMatrix
+from orc_cfd.ops.spmv import EllMatrix
+from orc_cfd.solver.krylov import jacobi_smooth_solve
 
 
 def _structured_system(C, offsets, B=0, dtype=jnp.float32, seed=0):
@@ -45,6 +40,30 @@ def _structured_system(C, offsets, B=0, dtype=jnp.float32, seed=0):
     )
 
 
+def _dense_sweeps(diag, off, offsets, b, x0, sweeps, relaxation):
+    """NumPy reference: `sweeps` damped-Jacobi steps
+    x <- w D^-1 (b - (A - D) x) + (1 - w) x on the dense matrix."""
+    diag = np.asarray(diag, np.float64)
+    off = np.asarray(off, np.float64)
+    C = diag.shape[0]
+    A = np.diag(diag)
+    c = np.arange(C)
+    for k, d in enumerate(offsets):
+        ok = (c + d >= 0) & (c + d < C) & (d != 0)
+        A[c[ok], c[ok] + d] += off[ok, k]
+    R = A - np.diag(diag)
+    x = np.asarray(x0, np.float64)
+    b = np.asarray(b, np.float64)
+    for _ in range(sweeps):
+        x = relaxation * (b - x @ R.T) / diag + (1.0 - relaxation) * x
+    return x
+
+
+def _smooth(diag, off, offsets, b, x0, sweeps, relaxation):
+    A = EllMatrix(diag=diag, off=off, neighbors=None, offsets=offsets)
+    return jacobi_smooth_solve(A, b, x0, sweeps, relaxation)[0]
+
+
 @pytest.mark.parametrize(
     "offsets,sweeps",
     [
@@ -52,54 +71,29 @@ def _structured_system(C, offsets, B=0, dtype=jnp.float32, seed=0):
         ((-40, -1, 1, 40), 6),
         ((-40, -1, 1, 40, 0, 0), 4),  # 2D mesh with padded K=6 slots
         ((-1600, -40, -1, 1, 40, 1600), 3),  # 3D-like pattern
-        ((-130, -1, 1, 130), 5),  # |d| > LANES: multi-row halo
+        ((-130, -1, 1, 130), 5),  # |d| wider than 128 cells
     ],
 )
 def test_kernel_matches_xla_sweeps(offsets, sweeps):
     C = 2100
     diag, off, b, x0 = _structured_system(C, offsets, B=3, seed=1)
-    cols = tuple(off[:, k] for k in range(off.shape[1]))
-    y_ref = sweeps_xla(diag, off, offsets, b, x0, sweeps, 0.8)
-    y = _fused_batched(
-        diag, cols, b, x0,
-        offsets=offsets, sweeps=sweeps, relaxation=0.8, interpret=True,
-    )
-    np.testing.assert_allclose(
-        np.asarray(y), np.asarray(y_ref), rtol=2e-6, atol=2e-6
-    )
+    y = jax.vmap(
+        lambda bb, xx: _smooth(diag, off, offsets, bb, xx, sweeps, 0.8)
+    )(b, x0)
+    for i in range(3):
+        y_ref = _dense_sweeps(diag, off, offsets, b[i], x0[i], sweeps, 0.8)
+        np.testing.assert_allclose(
+            np.asarray(y[i]), y_ref, rtol=2e-5, atol=2e-5
+        )
 
 
 def test_unbatched_and_dispatch():
     offsets = (-64, -1, 1, 64)
     C = 4096
     diag, off, b, x0 = _structured_system(C, offsets, seed=2)
-    y_ref = sweeps_xla(diag, off, offsets, b, x0, 4, 0.7)
-    # On CPU eligible() is False -> fused_jacobi_sweeps must return the
-    # identical XLA formulation.
-    y = fused_jacobi_sweeps(diag, off, offsets, b, x0, 4, 0.7)
-    np.testing.assert_allclose(np.asarray(y), np.asarray(y_ref), rtol=1e-6)
-    # Kernel (interpret) against the same reference, B=1.
-    cols = tuple(off[:, k] for k in range(off.shape[1]))
-    y_k = _fused_batched(
-        diag, cols, b[None], x0[None],
-        offsets=offsets, sweeps=4, relaxation=0.7, interpret=True,
-    )[0]
-    np.testing.assert_allclose(
-        np.asarray(y_k), np.asarray(y_ref), rtol=2e-6, atol=2e-6
-    )
-
-
-def test_eligibility_gate():
-    offsets = (-64, -1, 1, 64)
-    diag, off, b, x0 = _structured_system(300000, offsets, seed=3)
-    # CPU backend: never eligible (the fused kernel is TPU-only).
-    assert not eligible(diag, off, offsets, x0, 6, 0.8)
-    # Traced relaxation: ineligible regardless of backend.
-    assert not eligible(diag, off, offsets, x0, 6, jnp.float32(0.8))
-    # f64: ineligible (v5e rejects f64 Pallas operands).
-    assert not eligible(
-        diag.astype(jnp.float64), off, offsets, x0, 6, 0.8
-    )
+    y = _smooth(diag, off, offsets, b, x0, 4, 0.7)
+    y_ref = _dense_sweeps(diag, off, offsets, b, x0, 4, 0.7)
+    np.testing.assert_allclose(np.asarray(y), y_ref, rtol=2e-5, atol=2e-5)
 
 
 def test_split_columns_drops_zero_offsets():
@@ -127,18 +121,18 @@ def test_split_columns_drops_zero_offsets():
 
 
 def test_vmap_shared_matrix_routes_batched():
-    """jax.vmap over fused_jacobi_sweeps with a shared matrix must
-    produce the same result as the batched XLA loop (custom_vmap rule
-    correctness; on CPU both sides are XLA, exercising the rule's
-    shape plumbing)."""
+    """jax.vmap over the smoother with a shared matrix (the momentum
+    solve's shape in solver/simple.py) matches the dense reference
+    per component."""
     offsets = (-48, -1, 1, 48)
     C = 2304
     diag, off, b3, x3 = _structured_system(C, offsets, B=3, seed=5)
-    y_ref = sweeps_xla(diag, off, offsets, b3, x3, 5, 0.75)
-    f = lambda bb, xx: fused_jacobi_sweeps(
-        diag, off, offsets, bb, xx, 5, 0.75
-    )
-    y = jax.vmap(f)(b3, x3)
-    np.testing.assert_allclose(
-        np.asarray(y), np.asarray(y_ref), rtol=1e-6, atol=1e-6
-    )
+    A = EllMatrix(diag=diag, off=off, neighbors=None, offsets=offsets)
+    y = jax.vmap(
+        lambda bb, xx: jacobi_smooth_solve(A, bb, xx, 5, 0.75)[0]
+    )(b3, x3)
+    for i in range(3):
+        y_ref = _dense_sweeps(diag, off, offsets, b3[i], x3[i], 5, 0.75)
+        np.testing.assert_allclose(
+            np.asarray(y[i]), y_ref, rtol=2e-5, atol=2e-5
+        )

@@ -21,11 +21,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from orc_tpu.mesh.generate import structured_box_mesh, write_tgrid
-from orc_tpu.mesh.tgrid import parse_tgrid, read_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.simple import initial_state, solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.mesh.generate import structured_box_mesh, write_tgrid
+from orc_cfd.mesh.tgrid import parse_tgrid, read_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.simple import initial_state, solve_steady
+from orc_cfd.utils.settings import (
     GradientReconstruction,
     MatrixSolverSettings,
     MomentumScheme,
@@ -135,8 +135,8 @@ def test_periodic_poiseuille(use_ck):
 def test_periodic_gradients():
     """Cell gradients of a periodic field are seamless across the wrap
     for every reconstruction scheme."""
-    from orc_tpu.ops.fields import device_bc, face_bc
-    from orc_tpu.ops.gradients import pressure_gradient
+    from orc_cfd.ops.fields import device_bc, face_bc
+    from orc_cfd.ops.gradients import pressure_gradient
 
     nx, ny, L = 32, 4, 2.0
     mesh, table = structured_box_mesh(
@@ -202,7 +202,7 @@ def test_tgrid_periodic_roundtrip(tmp_path):
 
 
 def test_tgrid_periodic_native(tmp_path):
-    from orc_tpu.mesh.native import native_available, parse_tgrid_native
+    from orc_cfd.mesh.native import native_available, parse_tgrid_native
 
     if not native_available():
         pytest.skip("native parser unavailable")
@@ -246,7 +246,7 @@ def test_sharded_periodic_matches(ck):
     """Distributed solve on a periodic mesh == single-device: wrap
     offsets stay within slabs (periodicity transverse to the partition
     axis), so ghost-layer refreshes cover them."""
-    from orc_tpu.parallel.sharded import solve_steady_sharded
+    from orc_cfd.parallel.sharded import solve_steady_sharded
 
     mesh, table = periodic_channel(nx=8, ny=8)
     settings = body_force_settings(mesh, 1.0)
@@ -273,7 +273,7 @@ def test_sharded_periodic_matches(ck):
 
 
 def test_unconstrained_classification():
-    from orc_tpu.solver.init_fields import (
+    from orc_cfd.solver.init_fields import (
         SystemConstraint,
         check_boundary_conditions,
         initialize_flow,

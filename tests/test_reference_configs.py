@@ -1,4 +1,4 @@
-"""The remaining BASELINE.json reference configurations, end-to-end:
+"""The remaining reference configurations, end-to-end:
 
 - channel_flow.msh with pressure inlet/outlet + QUICK/UMIST limiters
   (config 3)
@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import read_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.simple import initial_state, solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.mesh import read_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.simple import initial_state, solve_steady
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -104,8 +104,8 @@ def test_3x3_cube_solve(reference_mesh_dir):
 
     # Quantitative checks (unit-cube square duct, Stokes regime):
     # 1. Global mass conservation: net inlet flux == net outlet flux.
-    from orc_tpu.ops.fields import device_bc, face_bc
-    from orc_tpu.ops.interpolation import face_flux
+    from orc_cfd.ops.fields import device_bc, face_bc
+    from orc_cfd.ops.interpolation import face_flux
 
     zc, zs, zv = device_bc(table, dtype=mesh.dtype)
     fbc = face_bc(mesh, zc, zs, zv)
@@ -146,8 +146,8 @@ def test_square_duct_refined_matches_analytical():
     unit cube, same pressure-driven Stokes square duct): the bulk
     velocity must land within 15% of the series solution
     u_mean = 0.035144 dp a^2 / (mu L) — closing the coarse test's 50%
-    band (VERDICT r2 item 9)."""
-    from orc_tpu.mesh import structured_box_mesh
+    band."""
+    from orc_cfd.mesh import structured_box_mesh
 
     mesh, table = structured_box_mesh(9, 9, 9, lengths=(1.0, 1.0, 1.0))
     table.set("INLET", FaceCondition.PRESSURE_INLET, scalar_value=1.0)

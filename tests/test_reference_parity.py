@@ -4,7 +4,7 @@ A hand transliteration of the reference's formulas into plain NumPy
 per-cell/per-face loops (reference: discretization.rs:39-131 diffusion,
 133-356 advection, 358-448 pressure correction; solver.rs:952-1150 face
 interpolation, 774-950 gradients, 1169-1227 correction), asserted
-ENTRY-FOR-ENTRY against orc_tpu's vectorized [C,K] ELL assembly. If any
+ENTRY-FOR-ENTRY against orc_cfd's vectorized [C,K] ELL assembly. If any
 assembled coefficient drifts from the reference's formulas, these tests
 fail.
 
@@ -26,18 +26,18 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.ops.assembly import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.ops.assembly import (
     apply_pressure_correction,
     diffusion_system,
     momentum_system,
     pressure_correction_system,
 )
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.gradients import pressure_gradient, velocity_gradient
-from orc_tpu.ops.interpolation import face_flux, face_pressure
-from orc_tpu.utils.settings import (
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.gradients import pressure_gradient, velocity_gradient
+from orc_cfd.ops.interpolation import face_flux, face_pressure
+from orc_cfd.utils.settings import (
     GradientReconstruction,
     MomentumScheme,
     NumericalSettings,
@@ -182,7 +182,7 @@ class RefAssembler:
         # which does NOT vanish for a linear pressure field (with
         # (p_i - p_j) in t2 the gradient part must ADD) — the
         # reference's sign injects a spurious -d_f*grad_p.n flux.
-        # orc_tpu uses the consistent +t3 form; the oracle pins it.
+        # orc_cfd uses the consistent +t3 form; the oracle pins it.
         return 0.5 * (t1 + t2 + t3)
 
     # -- discretization.rs:39-131 ------------------------------------------
@@ -370,7 +370,7 @@ def make_cube(reference_mesh_dir):
     neither implementation supports (the reference panics,
     discretization.rs:114-117) — retype them to supported conditions.
     """
-    from orc_tpu.mesh import read_mesh
+    from orc_cfd.mesh import read_mesh
 
     mesh, table = read_mesh(f"{reference_mesh_dir}/3x3_cube.msh")
     table.set("INLET", FaceCondition.VELOCITY_INLET, vector_value=(0.7, 0.1, -0.2))

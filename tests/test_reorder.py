@@ -1,9 +1,8 @@
 """Irregular-mesh fast path: RCM reordering + slice-plan SpMV
-(orc_tpu/mesh/reorder.py, ops/spmv.slice_spmv).
+(orc_cfd/mesh/reorder.py, ops/spmv.slice_spmv).
 
 The reference's CSR SpMV is ordering-agnostic on CPU
-(linear_algebra.rs:65-141); on TPU, element gathers are ~400x slower
-than shifts, so irregular meshes get an RCM ordering + per-tile
+(linear_algebra.rs:65-141); here irregular meshes get an RCM ordering + per-tile
 distinct-delta slice schedule at compile time. These tests pin:
 - the permutation is a permutation and bounds the bandwidth,
 - slice SpMV == gather SpMV exactly (same sparsity, random values),
@@ -15,21 +14,21 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from orc_tpu.mesh.reorder import build_slice_plan, rcm_permutation
-from orc_tpu.ops.spmv import EllMatrix
+from orc_cfd.mesh.reorder import build_slice_plan, rcm_permutation
+from orc_cfd.ops.spmv import EllMatrix
 
 
 def _random_irregular_mesh(n=17, seed=0):
     """A structured box run through a random cell permutation so that
     no structured offsets exist — compile_from_arrays then applies RCM
     and builds a slice plan."""
-    from orc_tpu.models.cavity import cavity_case
+    from orc_cfd.models.cavity import cavity_case
 
     rng = np.random.default_rng(seed)
     mesh, table = cavity_case(n=n, dtype=jnp.float64)
     assert mesh.neighbor_offsets is not None
     # Rebuild with permuted cells via compile_from_arrays.
-    from orc_tpu.mesh.compile import compile_from_arrays
+    from orc_cfd.mesh.compile import compile_from_arrays
 
     C = mesh.n_cells
     perm = rng.permutation(C)
@@ -156,9 +155,9 @@ def test_irregular_solve_matches_structured():
     """The same physical box solved in structured order and in a
     random (-> RCM) order must give the same flow field (up to the
     cell relabeling)."""
-    from orc_tpu.models.cavity import cavity_case
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.models.cavity import cavity_case
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MatrixSolverSettings,
         MomentumScheme,
         NumericalSettings,
@@ -214,8 +213,8 @@ def test_null_comm_refresh_is_sentinel():
     .prepare()) on `refresh is _no_refresh`, so a plain bound method
     would silently route every irregular-mesh SIMPLE solve onto the
     element-gather SpMV."""
-    from orc_tpu.solver.krylov import _no_refresh
-    from orc_tpu.solver.simple import NullComm
+    from orc_cfd.solver.krylov import _no_refresh
+    from orc_cfd.solver.simple import NullComm
 
     assert NullComm().refresh is _no_refresh
     assert NullComm.refresh is _no_refresh
@@ -225,8 +224,8 @@ def test_text_io_raw_order_round_trip(tmp_path):
     """Text data files use RAW mesh cell order (the format's implicit
     schema, io.rs:519-571): an RCM-compiled mesh must write rows in
     raw order and warm-start back into compiled order."""
-    from orc_tpu.io.checkpoint import load_or_initialize
-    from orc_tpu.io.data import read_data, write_data
+    from orc_cfd.io.checkpoint import load_or_initialize
+    from orc_cfd.io.data import read_data, write_data
 
     mesh, table = _random_irregular_mesh(9)
     assert mesh.cell_order is not None

@@ -1,10 +1,10 @@
 """Residual-history regression against the pinned fixtures.
 
-BASELINE.json's correctness target is a residual-history match at 1e-6
+The project's correctness target is a residual-history match at 1e-6
 relative tolerance on couette_flow_128x64x1. The Rust reference cannot
 be built here, so the pinned trajectories are this framework's own f64
 runs (scripts/gen_residual_fixture.py). Two pins since the round-4
-default-coupling flip (VERDICT r3 item 6):
+default-coupling flip:
 
 - the PARITY loop (explicit PressureVelocityCoupling.SIMPLE) against
   the round-1 fixture — unchanged by the flip, still the
@@ -39,7 +39,7 @@ FIELDS = (
 
 
 def _check(history, fixture, label):
-    from orc_tpu.solver.simple import stack_history
+    from orc_cfd.solver.simple import stack_history
 
     hs = stack_history(history)
     with np.load(fixture) as z:
@@ -63,7 +63,7 @@ def test_history_matches_fixture(reference_mesh_dir):
     if not os.path.exists(FIXTURE):
         pytest.skip("fixture not generated")
     import scripts.gen_residual_fixture as gen
-    from orc_tpu.utils.settings import (
+    from orc_cfd.utils.settings import (
         NumericalSettings,
         PressureVelocityCoupling,
     )

@@ -5,14 +5,14 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.sequencing import (
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.sequencing import (
     prolong_state,
     solve_steady_sequenced,
     upsample_field,
 )
-from orc_tpu.solver.simple import initial_state, solve_steady
-from orc_tpu.utils.settings import (
+from orc_cfd.solver.simple import initial_state, solve_steady
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -58,7 +58,7 @@ def test_sequenced_cavity_beats_cold_start():
     """With the same fine-grid iteration budget, the cascade gets much
     closer to the developed cavity flow than a cold start (the whole
     point of sequencing)."""
-    from orc_tpu.models.cavity import cavity_case
+    from orc_cfd.models.cavity import cavity_case
 
     def builder(nx, ny, nz):
         return cavity_case(n=nx, lid_velocity=1.0)

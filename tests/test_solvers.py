@@ -11,9 +11,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from orc_tpu.ops.spmv import EllMatrix
-from orc_tpu.solver.krylov import iterative_solve
-from orc_tpu.utils.settings import (
+from orc_cfd.ops.spmv import EllMatrix
+from orc_cfd.solver.krylov import iterative_solve
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     PreconditionMethod,
     SolutionMethod,
@@ -145,8 +145,8 @@ def test_multigrid_known_solution(restriction):
     """The reference excludes Multigrid from this test because it fails
     (linear_algebra.rs:344-345). Ours must pass it, with both
     aggregation strategies."""
-    from orc_tpu.solver.amg import build_hierarchy_from_matrix
-    from orc_tpu.utils.settings import RestrictionMethod
+    from orc_cfd.solver.amg import build_hierarchy_from_matrix
+    from orc_cfd.utils.settings import RestrictionMethod
 
     A, b, x_true = reference_test_system()
     settings = MatrixSolverSettings(
@@ -172,7 +172,7 @@ def test_multigrid_known_solution(restriction):
 def test_multigrid_galerkin_matches_dense():
     """A_c = R A R^T computed by the static scatter must equal the dense
     triple product."""
-    from orc_tpu.solver.amg import (
+    from orc_cfd.solver.amg import (
         build_hierarchy_from_matrix,
         galerkin_values,
     )
@@ -196,8 +196,8 @@ def test_multigrid_galerkin_matches_dense():
 def test_structured_offsets_spmv_matches_gather():
     """Structured meshes detect constant ELL column offsets; the
     shift-based SpMV must equal the gather-based one exactly."""
-    from orc_tpu.mesh import structured_box_mesh
-    from orc_tpu.ops.spmv import ell_spmv
+    from orc_cfd.mesh import structured_box_mesh
+    from orc_cfd.ops.spmv import ell_spmv
 
     mesh, _ = structured_box_mesh(5, 4, 3)
     assert mesh.neighbor_offsets is not None
@@ -230,7 +230,7 @@ def test_structured_offsets_on_reference_mesh(reference_mesh_dir):
     path must still be used transparently."""
     import os
 
-    from orc_tpu.mesh import read_mesh
+    from orc_cfd.mesh import read_mesh
 
     mesh, _ = read_mesh(
         os.path.join(reference_mesh_dir, "couette_flow_8x8x1.msh")
@@ -267,7 +267,7 @@ def test_multigrid_tuned_smoother():
     solve) must still pass the known-solution test — this is the
     production configuration; the reference runs the full iteration
     count at every level."""
-    from orc_tpu.solver.amg import build_hierarchy_from_matrix
+    from orc_cfd.solver.amg import build_hierarchy_from_matrix
 
     A, b, x_true = reference_test_system()
     settings = MatrixSolverSettings(
@@ -292,7 +292,7 @@ def test_compensated_f32_reductions():
     """compensated_f32: f32 dot products accumulate in double width —
     the reduction error drops from f32-summation scale to ~f32 eps of
     the result (SURVEY §7 design stance)."""
-    from orc_tpu.solver.krylov import (
+    from orc_cfd.solver.krylov import (
         _dot,
         _dot_comp,
         _identity_sum,
@@ -346,7 +346,7 @@ def test_deflated_bicgstab_singular_system():
     projection, the Jacobi-preconditioned operator loses
     range(A) ⊥ 1 and post-convergence BiCGSTAB steps amplify a
     roundoff-seeded constant (measured |x| > 1e10 spikes)."""
-    from orc_tpu.solver.krylov import bicgstab_solve, constant_deflation
+    from orc_cfd.solver.krylov import bicgstab_solve, constant_deflation
 
     n = 64
     neighbors = np.stack(
@@ -377,9 +377,9 @@ def test_fully_periodic_domain_simple_runs():
     pressure solve inside the SIMPLE step — without deflation this
     diverges on the p' constant mode. Body-force driven so the flow is
     nontrivial; asserts bounded fields and the zero-mean p' gauge."""
-    from orc_tpu.mesh import structured_box_mesh
-    from orc_tpu.solver.simple import initial_state, solve_steady
-    from orc_tpu.utils.settings import (
+    from orc_cfd.mesh import structured_box_mesh
+    from orc_cfd.solver.simple import initial_state, solve_steady
+    from orc_cfd.utils.settings import (
         MomentumScheme,
         NumericalSettings,
         PressureInterpolation,

@@ -6,11 +6,11 @@ leaves unchecked (README.md:42)."""
 import numpy as np
 import pytest
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.simple import initial_state
-from orc_tpu.solver.transient import solve_transient
-from orc_tpu.utils.settings import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.simple import initial_state
+from orc_cfd.solver.transient import solve_transient
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -126,7 +126,7 @@ def test_courant_numbers():
     gives Co = dt*|u|/h exactly (two crossed faces per direction)."""
     import jax.numpy as jnp
 
-    from orc_tpu.solver.transient import courant_numbers
+    from orc_cfd.solver.transient import courant_numbers
 
     mesh, table = structured_box_mesh(4, 4, 1, lengths=(4.0, 4.0, 1.0))
     u0, dt = 2.0, 0.25
@@ -159,11 +159,11 @@ def test_taylor_green_vortex_decay():
 
     import jax.numpy as jnp
 
-    from orc_tpu.utils.settings import (
+    from orc_cfd.utils.settings import (
         NumericalSettings as NS,
         RelaxationMode,
     )
-    from orc_tpu.mesh import structured_box_mesh
+    from orc_cfd.mesh import structured_box_mesh
 
     N = 32
     rho, mu = 1.0, 0.02  # nu = 0.02
@@ -215,8 +215,8 @@ def test_sharded_transient_matches_single_device():
     """Distributed implicit-Euler marching (parallel/sharded.
     solve_transient_sharded) reproduces the single-device trajectory —
     for both the parity SIMPLE and SIMPLE_FC couplings."""
-    from orc_tpu.parallel.sharded import solve_transient_sharded
-    from orc_tpu.utils.settings import PressureVelocityCoupling
+    from orc_cfd.parallel.sharded import solve_transient_sharded
+    from orc_cfd.utils.settings import PressureVelocityCoupling
 
     ny = 12
     mesh, table = structured_box_mesh(4, ny, 1, lengths=(4e-4, H, 1e-4))

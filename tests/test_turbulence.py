@@ -12,15 +12,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from orc_tpu.mesh import structured_box_mesh
-from orc_tpu.mesh.zones import FaceCondition
-from orc_tpu.solver.turbulence import (
+from orc_cfd.mesh import structured_box_mesh
+from orc_cfd.mesh.zones import FaceCondition
+from orc_cfd.solver.turbulence import (
     E_WALL,
     KAPPA,
     initial_turbulence,
     solve_steady_turbulent,
 )
-from orc_tpu.utils.settings import (
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -159,7 +159,7 @@ def test_initial_turbulence_levels():
 def test_sharded_turbulent_matches_single_device():
     """The distributed RANS loop (sharded SIMPLE + sharded k/eps
     transport) reproduces the single-device trajectory."""
-    from orc_tpu.solver.turbulence import solve_steady_turbulent_sharded
+    from orc_cfd.solver.turbulence import solve_steady_turbulent_sharded
 
     RE_TAU, H = 590.0, 2.0
     rho, u_tau = 1.0, 1.0
@@ -260,8 +260,8 @@ def test_sharded_turbulent_fc_matches_single_device():
     fluxes are seeded inside shard_map and the outer step reproduces
     the single-device trajectory (the FC p-solve runs deflated — the
     body-force channel has no pressure zones)."""
-    from orc_tpu.solver.turbulence import solve_steady_turbulent_sharded
-    from orc_tpu.utils.settings import (
+    from orc_cfd.solver.turbulence import solve_steady_turbulent_sharded
+    from orc_cfd.utils.settings import (
         PressureVelocityCoupling,
         RelaxationMode,
     )

@@ -17,12 +17,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from orc_tpu.models.cavity import cavity_case
-from orc_tpu.ops.assembly import diffusion_system, momentum_system
-from orc_tpu.ops.fields import device_bc, face_bc
-from orc_tpu.ops.gradients import velocity_gradient
-from orc_tpu.ops.interpolation import face_flux, face_pressure
-from orc_tpu.utils.settings import (
+from orc_cfd.models.cavity import cavity_case
+from orc_cfd.ops.assembly import diffusion_system, momentum_system
+from orc_cfd.ops.fields import device_bc, face_bc
+from orc_cfd.ops.gradients import velocity_gradient
+from orc_cfd.ops.interpolation import face_flux, face_pressure
+from orc_cfd.utils.settings import (
     MatrixSolverSettings,
     MomentumScheme,
     NumericalSettings,
@@ -98,7 +98,7 @@ def test_psi_one_matches_cd_on_interior_cells():
     """With psi == 1 the TVD_DC residual A@v - b equals CD1's wherever
     all faces are interior (boundary faces use UD by design) — checked
     on a fully periodic box, where every face is interior."""
-    from orc_tpu.mesh.generate import structured_box_mesh
+    from orc_cfd.mesh.generate import structured_box_mesh
 
     mesh, table = structured_box_mesh(
         8, 8, 3, periodic=("x", "y", "z"), dtype=jnp.float64
@@ -122,7 +122,7 @@ def test_cavity_re100_ghia_midline():
     """Ghia et al. (1982) Re=100 Table I u-midline on a 48^2 grid:
     converged TVD_DC matches every landmark to <= 0.025 (profile
     linearly interpolated between cell centers)."""
-    from orc_tpu.solver.simple import initial_state, solve_steady
+    from orc_cfd.solver.simple import initial_state, solve_steady
 
     ghia_y = [0.0547, 0.1016, 0.1719, 0.2813, 0.4531, 0.5,
               0.6172, 0.7344, 0.8516, 0.9531]
